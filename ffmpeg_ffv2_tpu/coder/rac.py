@@ -1,7 +1,7 @@
 """Binary adaptive range coder — bit-exact with the FFV1 bitstream.
 
 This is the scalar Python oracle used to validate the C++ host coder and the
-Pallas TPU kernels.  Semantics follow the FFV1 specification / the reference
+device kernels.  Semantics follow the FFV1 specification / the reference
 implementation (libavcodec/rangecoder.{c,h}): byte-oriented renormalization
 with carry propagation through an outstanding-byte chain, 8-bit adaptive
 states with probability-evolution transition tables, and the two termination

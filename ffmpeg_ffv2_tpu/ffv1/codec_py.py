@@ -2,7 +2,7 @@
 
 Everything here mirrors the FFV1 bitstream semantics (reference:
 ffv1_template.c, ffv1enc_template.c, ffv1dec_template.c) but is written for
-clarity, not speed.  The C++ host codec (native/) and the TPU kernels
+clarity, not speed.  The C++ host codec (native/) and the device kernels
 (tpu.py) are both validated against this module.
 
 Sample-buffer convention: each plane is coded line by line with a ring of

@@ -6,7 +6,7 @@ ffv1enc.c put_vlc_symbol / golomb.h set_sr_golomb (adaptive-k signed
 Rice), bitstream.c ff_log2_run ladder.  The repo oracle is
 codec_py.encode_line + coder/golomb.py (FATE-green).
 
-TPU-first formulation — nothing here follows the C control flow:
+Data-parallel formulation — nothing here follows the C control flow:
 
 * **Run automaton closed form.**  Per line, with z = (diff == 0) and
   c0 = (ctx == 0):  mode_after(x) = "∃t ≤ x with c0(t) and z(t..x)"
@@ -48,8 +48,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
+from ..accel import check_kernel_platform
 from ..coder.golomb import LOG2_RUN
 
 I32MAX = 2**31 - 1
@@ -150,7 +151,7 @@ def run_index_scan(ev_count, ev_flush, ev_valid, ev_reset=None):
 
 
 # ---------------------------------------------------------------------------
-# VlcState chain walk — XLA reference (CPU/dryrun); pallas twin later
+# VlcState chain walk — plain XLA reference (the Triton kernel is below)
 # ---------------------------------------------------------------------------
 
 VLC_INIT = np.array([0, 4, 0, 1], np.int32)      # drift, error_sum, bias, count
@@ -196,7 +197,7 @@ def vlc_update(drift, es, bias, count, v):
 
 def vlc_adapt_reference(ch1_cells, tile_caps, tile_bases, tile_pred,
                         s0_blocks, tiles_cap: int, bits: int):
-    """Row-scan reference of the vlc walk (CPU/dryrun path).
+    """Row-scan reference of the vlc walk (the CPU path).
 
     ch1_cells: (CELLROWS, 128) int32 — bits 0..11 diff+2048, bit 12
     silent, bit 13 valid; s0_blocks: (TILES_CAP, 5, 128) int32 —
@@ -439,118 +440,55 @@ def rice_elements(streams, vlc_codes, ones, term_j, rem):
 
 
 # ---------------------------------------------------------------------------
-# VlcState chain walk — pallas kernel (TPU twin of vlc_adapt_reference)
+# VlcState chain walk — Pallas (Triton) kernel
 # ---------------------------------------------------------------------------
+#
+# The sibling of adapt_pallas: one program per block of lanes walks every
+# tile and cell row in order, its lanes' four state rows (drift,
+# error_sum, bias, count) in registers; there is no table gather, the
+# coding and the state update are the reference's own arithmetic
+# (vlc_code_word / vlc_update).  Split groups continue from carry[pred]
+# at the same lane, written earlier by the same program.
 
-VLC_CHUNK = 512
+VLC_LANE_BLOCK = 32
 
 
-def _vlc_kernel(caps_ref, bases_ref, preds_ref,
-                ch1_hbm, s0_ref, carry_alias,
-                code_hbm, carry_hbm,
-                in_scr, out_scr, carry_scr, dma_sems,
-                *, bits: int):
-    """One tile per grid step (adapt_pallas structure, 4-row states).
+def _vlc_kernel(caps_ref, bases_ref, preds_ref, ch1_ref, s0_ref,
+                code_ref, carry_ref, *, tiles: int, bits: int,
+                lane_block: int, barrier: bool):
+    lanes = pl.ds(pl.program_id(0) * lane_block, lane_block)
+    pb = 12 if bits <= 12 else 16          # payload diff-field width
 
-    Unlike the range walk there is NO table gather: put_vlc_symbol's k
-    has the closed form k = bitlength((error_sum - 1) // count) and the
-    state update is pure arithmetic — every row is vector-only."""
-    i = pl.program_id(0)
-    cap = caps_ref[i]
-    base = bases_ref[i]
-    pred = preds_ref[i]
+    def tile_body(t, carry):
+        cap = caps_ref[t]
+        base = bases_ref[t]
+        pred = preds_ref[t]
+        cont = (s0_ref[t, 4, lanes] > 0) & (pred >= 0)
+        pr = jnp.maximum(pred, 0)
+        st = tuple(jnp.where(cont, carry_ref[pr, k, lanes],
+                             s0_ref[t, k, lanes]) for k in range(4))
 
-    @pl.when(cap > 0)
-    def _tile():
-        @pl.when(pred >= 0)
-        def _load_pred():
-            cp = pltpu.make_async_copy(
-                carry_hbm.at[pl.ds(jnp.maximum(pred, 0), 1)],
-                carry_scr, dma_sems.at[0])
-            cp.start()
-            cp.wait()
+        def row_body(r, c):
+            drift, es, bias, count, cur = c
+            nxt = ch1_ref[base + r + 1, lanes]          # prefetch
+            v0 = (cur & ((1 << pb) - 1)) - (1 << (pb - 1))
+            live = (((cur >> (pb + 1)) & 1) == 1) & (((cur >> pb) & 1) == 0)
+            length, val, v = vlc_code_word(v0, drift, es, bias, count, bits)
+            code_ref[base + r, lanes] = jnp.where(live, (length << 18) | val,
+                                                  0)
+            new = vlc_update(drift, es, bias, count, v)
+            return (*(jnp.where(live, n, o)
+                      for n, o in zip(new, (drift, es, bias, count))), nxt)
 
-        s0blk = s0_ref[0]                       # (5, 128)
-        cont = (s0blk[4:5, :] > 0) & (pred >= 0)
-        s_init = jnp.where(cont, carry_scr[0], s0blk[:4, :])
+        out = jax.lax.fori_loop(0, cap, row_body,
+                                (*st, ch1_ref[base, lanes]))
+        for k in range(4):
+            carry_ref[t, k, lanes] = jnp.where(cap > 0, out[k], 0)
+        if barrier:
+            plgpu.debug_barrier()
+        return carry
 
-        nchunks = pl.cdiv(cap, VLC_CHUNK)
-
-        def chunk_body(c, s):
-            row0 = base + c * VLC_CHUNK
-            cp_in = pltpu.make_async_copy(
-                ch1_hbm.at[pl.ds(row0, VLC_CHUNK)], in_scr,
-                dma_sems.at[1])
-            cp_in.start()
-            cp_in.wait()
-
-            def step(t, s):
-                row = in_scr[t, :][None, :]           # (1, 128)
-                pb = 12 if bits <= 12 else 16
-                v0 = (row & ((1 << pb) - 1)) - (1 << (pb - 1))
-                live = (((row >> (pb + 1)) & 1)
-                        * (1 - ((row >> pb) & 1))
-                        * ((c * VLC_CHUNK + t) < cap).astype(jnp.int32))
-                drift, es, bias, count = (s[0:1], s[1:2], s[2:3], s[3:4])
-                mask = (1 << bits) - 1
-                half = 1 << (bits - 1)
-                d = (v0 - bias) & mask
-                v = d - ((d & half) << 1)
-                # k = smallest k with count << k >= es
-                #   = bitlength((es - 1) // count)
-                q = (es - 1) // jnp.maximum(count, 1)
-                fq = q.astype(jnp.float32)
-                eq = (jax.lax.bitcast_convert_type(fq, jnp.int32)
-                      >> 23) - 127
-                k = jnp.where(q >= 1, eq + 1, 0)
-                sgn = (2 * drift + count) >> 31
-                code = v ^ sgn
-                vv = (code << 1) ^ (code >> 31)
-                e = vv >> k
-                esc = e >= 12
-                length = jnp.where(esc, 12 + bits, e + k + 1)
-                val = jnp.where(esc, vv - 11,
-                                (1 << k) | (vv & ((1 << k) - 1)))
-                out_scr[pl.ds(t, 1)] = jnp.where(
-                    live == 1, (length << 18) | val, 0)
-                # state update (vlc_update)
-                es2 = (es + jnp.abs(v)) & 0xFFFF
-                dr2 = drift + v
-                at128 = count == 128
-                cnt2 = jnp.where(at128, count >> 1, count)
-                dr2 = jnp.where(at128, dr2 >> 1, dr2)
-                es2 = jnp.where(at128, es2 >> 1, es2)
-                cnt2 = cnt2 + 1
-                neg = dr2 <= -cnt2
-                pos = dr2 > 0
-                bs2 = jnp.where(neg, jnp.maximum(bias - 1, -128),
-                                jnp.where(pos, jnp.minimum(bias + 1, 127),
-                                          bias))
-                dr2 = jnp.where(
-                    neg, jnp.maximum(dr2 + cnt2, -cnt2 + 1),
-                    jnp.where(pos, jnp.minimum(dr2 - cnt2, 0), dr2))
-                ns = jnp.concatenate([dr2, es2, bs2, cnt2], axis=0)
-                return jnp.where(live == 1, ns, s)
-
-            def step4(q4, s):
-                for u in range(4):
-                    s = step(q4 * 4 + u, s)
-                return s
-
-            s = jax.lax.fori_loop(0, VLC_CHUNK // 4, step4, s)
-            cp_out = pltpu.make_async_copy(
-                out_scr, code_hbm.at[pl.ds(row0, VLC_CHUNK)],
-                dma_sems.at[2])
-            cp_out.start()
-            cp_out.wait()
-            return s
-
-        s_end = jax.lax.fori_loop(0, nchunks, chunk_body, s_init)
-        carry_scr[0] = s_end
-        cp_c = pltpu.make_async_copy(
-            carry_scr, carry_hbm.at[pl.ds(i, 1)], dma_sems.at[0])
-        cp_c.start()
-        cp_c.wait()
+    jax.lax.fori_loop(0, tiles, tile_body, 0)
 
 
 @functools.partial(jax.jit,
@@ -559,35 +497,21 @@ def _vlc_kernel(caps_ref, bases_ref, preds_ref,
 def vlc_adapt_pallas(ch1_cells, tile_caps, tile_bases, tile_pred,
                      s0_blocks, tiles_cap: int, cellrows_cap: int,
                      bits: int, interpret: bool = False):
-    """Same contract as vlc_adapt_reference (code_cells, end_states)."""
-    carry0 = jnp.zeros((tiles_cap, 4, 128), jnp.int32)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(tiles_cap,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),            # ch1 cells
-            pl.BlockSpec((1, 5, 128), lambda i, *_: (i, 0, 0),
-                         memory_space=pltpu.VMEM),           # s0 blocks
-            pl.BlockSpec(memory_space=pl.ANY),            # carry alias
-        ],
-        out_specs=(
-            pl.BlockSpec(memory_space=pl.ANY),            # code cells
-            pl.BlockSpec(memory_space=pl.ANY),            # carry
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((VLC_CHUNK, 128), jnp.int32),
-            pltpu.VMEM((VLC_CHUNK, 128), jnp.int32),
-            pltpu.VMEM((1, 4, 128), jnp.int32),
-            pltpu.SemaphoreType.DMA((3,)),
-        ],
-    )
-    code, carry = pl.pallas_call(
-        functools.partial(_vlc_kernel, bits=bits),
-        grid_spec=grid_spec,
+    """Same contract as vlc_adapt_reference (code_cells, end_states) on
+    the layout's live rows; rows past the last tile are not written, and
+    the layout must leave a row of slack past it (each row prefetches the
+    next)."""
+    check_kernel_platform("vlc_adapt_pallas", interpret)
+    kern = functools.partial(_vlc_kernel, tiles=tiles_cap, bits=bits,
+                             lane_block=VLC_LANE_BLOCK,
+                             barrier=not interpret)
+    return pl.pallas_call(
+        kern,
+        grid=(128 // VLC_LANE_BLOCK,),
         out_shape=(jax.ShapeDtypeStruct((cellrows_cap, 128), jnp.int32),
                    jax.ShapeDtypeStruct((tiles_cap, 4, 128), jnp.int32)),
-        input_output_aliases={5: 1},      # carry buffer in == out
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
+        compiler_params=plgpu.CompilerParams(num_warps=1, num_stages=1),
+        backend="triton",
         interpret=interpret,
-    )(tile_caps, tile_bases, tile_pred, ch1_cells, s0_blocks, carry0)
-    return code, carry
+        name="ffv1_vlc_walk",
+    )(tile_caps, tile_bases, tile_pred, ch1_cells, s0_blocks)

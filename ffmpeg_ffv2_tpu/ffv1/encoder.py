@@ -1,7 +1,7 @@
 """FFV1 frame encoder — packet assembly over the scalar slice codec.
 
 Mirrors ffv1enc.c:encode_frame/encode_slice.  This is the reference-exact
-host path; the TPU path (tpu.py) produces identical bytes via a
+host path; the device path (tpu.py) produces identical bytes via a
 parallel-modeling + sliced-entropy-coding pipeline.
 """
 

@@ -190,7 +190,7 @@ class NativeFFV1Codec:
     def encode_sym(self, planes, ctx_streams, diff_streams,
                    keyframe: bool) -> bytes:
         """Phase-B entropy coding over precomputed (context, diff) streams
-        (one int32 [h, w] pair per coded plane, from the TPU phase A)."""
+        (one int32 [h, w] pair per coded plane, from the device phase A)."""
         arrs, ptrs = self._plane_ptrs(planes)
         carrs, cptrs = self._plane_ptrs(ctx_streams)
         darrs, dptrs = self._plane_ptrs(diff_streams)

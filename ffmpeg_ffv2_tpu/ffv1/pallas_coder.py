@@ -1,202 +1,130 @@
-"""Pallas kernel for the lane-parallel range-coder arithmetic.
+"""Pallas (Triton) kernel for the lane-parallel range-coder arithmetic.
 
-Same recursion as tpu_coder.rac_scan_lanes, but as a single Mosaic kernel:
-the (low, range, pending, pending_count) carry lives in VMEM scratch that
-persists across the step-chunk grid, and the inner fori_loop advances one
-op per iteration for all lanes at once — no per-step dispatch overhead.
-Lanes pad to the 128-lane vector width; op streams chunk through VMEM.
+Same recursion as tpu_coder.rac_scan_lanes (the plain XLA reference),
+written for a GPU: one program per block of ``LANE_BLOCK`` lanes (a lane
+is one slice; in a batch, one slice of one frame).  Each thread keeps its
+lane's (low, range, pending, pending_count) in registers and a
+``fori_loop`` inside the kernel walks every op step, so the whole stream
+is one launch instead of one while-loop iteration per op.  Programs share
+nothing, so they run in any order.
 
-Verified bit-identical to the scan formulation (and therefore to the host
-coder) in tests/test_tpu_coder.py.
+The op words are packed [mode:2 | bit:1 | sv:8] (bits [10:9], [8],
+[7:0]) and load in chunks of ``STEP_CHUNK`` steps: the next chunk's words
+are requested before the current chunk's steps run, so their memory
+latency hides behind the arithmetic instead of stalling every step.
 """
 
 from __future__ import annotations
 
 import functools
 
-import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
+
+from ..accel import check_kernel_platform
 
 MODE_OP = 1
 MODE_FLUSH1 = 2
 MODE_FLUSH2 = 3
 
-LANE = 128          # TPU vector lane width
-CHUNK = 512         # op steps per grid iteration
+LANE_BLOCK = 32          # lanes per program: one warp, one lane per thread
+STEP_CHUNK = 32          # op steps per load chunk (PERF.md: 16 -> 39 ms,
+                         # 32 -> 32 ms at 1080p; per-step loads 110 ms)
 
 
-def _coder_kernel(sv_ref, bit_ref, mode_ref,
-                  first_ref, fcount_ref, fval_ref,
-                  low_ref, rng_ref, pend_ref, pcnt_ref):
-    @pl.when(pl.program_id(0) == 0)
-    def _init():
-        low_ref[...] = jnp.zeros_like(low_ref)
-        rng_ref[...] = jnp.full_like(rng_ref, 0xFF00)
-        pend_ref[...] = jnp.full_like(pend_ref, -1)
-        pcnt_ref[...] = jnp.zeros_like(pcnt_ref)
+def coder_step(w, low, rng, pending, pcount):
+    """One op of the recursion on a vector of lanes.  Returns the new
+    (low, range, pending, pcount) and the staged (first, fcount, fval)."""
+    s = w & 0xFF
+    b = (w >> 8) & 1
+    m = (w >> 9) & 3
+    is_op = m == MODE_OP
+    is_flush1 = m == MODE_FLUSH1
+    is_flush = is_flush1 | (m == MODE_FLUSH2)
 
-    def body(i, _):
-        low = low_ref[0, :]
-        rng = rng_ref[0, :]
-        pending = pend_ref[0, :]
-        pcount = pcnt_ref[0, :]
+    r1 = (rng * s) >> 8
+    low_op = jnp.where(b != 0, low + rng - r1, low)
+    rng_op = jnp.where(b != 0, r1, rng - r1)
+    low1 = jnp.where(is_op, low_op, jnp.where(is_flush1, low + 0xFF, low))
+    rng1 = jnp.where(is_op, rng_op, jnp.where(is_flush, 0xFF, rng))
 
-        s = sv_ref[i, :]
-        b = bit_ref[i, :]
-        m = mode_ref[i, :]
-        is_op = m == MODE_OP
-        is_flush1 = m == MODE_FLUSH1
-        is_flush = is_flush1 | (m == MODE_FLUSH2)
+    renorm = (rng1 < 0x100) & (is_op | is_flush)
+    case_b = pending < 0
+    case_c = low1 <= 0xFF00
+    case_d = low1 >= 0x10000
 
-        r1 = (rng * s) >> 8
-        low_op = jnp.where(b != 0, low + rng - r1, low)
-        rng_op = jnp.where(b != 0, r1, rng - r1)
-        low1 = jnp.where(is_op, low_op,
-                         jnp.where(is_flush1, low + 0xFF, low))
-        rng1 = jnp.where(is_op, rng_op, jnp.where(is_flush, 0xFF, rng))
+    emit = renorm & (~case_b) & (case_c | case_d)
+    first = jnp.where(emit, jnp.where(case_c, pending, pending + 1) & 0xFF,
+                      -1)
+    fcount = jnp.where(emit, pcount, 0)
+    fval = jnp.where(case_c, 0xFF, 0x00)
 
-        renorm = (rng1 < 0x100) & (is_op | is_flush)
-        case_b = pending < 0
-        case_c = low1 <= 0xFF00
-        case_d = low1 >= 0x10000
-
-        emit = renorm & (~case_b) & (case_c | case_d)
-        first_ref[i, :] = jnp.where(
-            emit, jnp.where(case_c, pending, pending + 1) & 0xFF, -1)
-        fcount_ref[i, :] = jnp.where(emit, pcount, 0)
-        fval_ref[i, :] = jnp.where(case_c, 0xFF, 0x00)
-
-        pend_ref[0, :] = jnp.where(
-            renorm,
-            jnp.where(case_b | case_c, low1 >> 8,
-                      jnp.where(case_d, (low1 >> 8) & 0xFF, pending)),
-            pending)
-        pcnt_ref[0, :] = jnp.where(
-            renorm,
-            jnp.where(case_b | case_c | case_d,
-                      jnp.where(case_b, pcount, 0), pcount + 1),
-            pcount)
-        low_ref[0, :] = jnp.where(renorm, (low1 & 0xFF) << 8, low1)
-        rng_ref[0, :] = jnp.where(renorm, rng1 << 8, rng1)
-        return 0
-
-    jax.lax.fori_loop(0, sv_ref.shape[0], body, 0)
+    pending2 = jnp.where(
+        renorm,
+        jnp.where(case_b | case_c, low1 >> 8,
+                  jnp.where(case_d, (low1 >> 8) & 0xFF, pending)),
+        pending)
+    pcount2 = jnp.where(
+        renorm,
+        jnp.where(case_b | case_c | case_d,
+                  jnp.where(case_b, pcount, 0), pcount + 1),
+        pcount)
+    low2 = jnp.where(renorm, (low1 & 0xFF) << 8, low1)
+    rng2 = jnp.where(renorm, rng1 << 8, rng1)
+    return (low2, rng2, pending2, pcount2), (first, fcount, fval)
 
 
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def rac_pallas_lanes(sv, bit, mode, interpret=False):
-    """sv/bit/mode int32 [steps, lanes] (steps % CHUNK == 0, lanes % 128
-    == 0) -> staged (first, fcount, fval) int32 [steps, lanes]."""
-    steps, lanes = sv.shape
-    grid = (steps // CHUNK,)
-    spec = pl.BlockSpec((CHUNK, lanes), lambda i: (i, 0),
-                        memory_space=pltpu.VMEM)
-    out = pl.pallas_call(
-        _coder_kernel,
-        grid=grid,
-        in_specs=[spec, spec, spec],
-        out_specs=(spec, spec, spec),
-        out_shape=(jax.ShapeDtypeStruct((steps, lanes), jnp.int32),) * 3,
-        scratch_shapes=[pltpu.VMEM((1, lanes), jnp.int32)] * 4,
-        interpret=interpret,
-    )(sv, bit, mode)
-    return out
+def _coder_kernel(op_ref, first_ref, fcount_ref, fval_ref, *, steps: int,
+                  chunk: int):
+    lanes = op_ref.shape[1]
+    nchunks = steps // chunk
 
+    def load_chunk(c):
+        base = jnp.minimum(c, nchunks - 1) * chunk
+        return tuple(op_ref[base + k, :] for k in range(chunk))
 
-def _coder_kernel_packed(op_ref, first_ref, fcount_ref, fval_ref,
-                         low_ref, rng_ref, pend_ref, pcnt_ref):
-    """Packed-word variant: ONE input ref of op words
-    [mode:2 | bit:1 | sv:8] (bits [10:9], [8], [7:0]) — a third of the
-    coder kernel's HBM read traffic vs the 3-channel form."""
-    @pl.when(pl.program_id(0) == 0)
-    def _init():
-        low_ref[...] = jnp.zeros_like(low_ref)
-        rng_ref[...] = jnp.full_like(rng_ref, 0xFF00)
-        pend_ref[...] = jnp.full_like(pend_ref, -1)
-        pcnt_ref[...] = jnp.zeros_like(pcnt_ref)
+    def body(c, carry):
+        words, state = carry[:chunk], carry[chunk:]
+        nxt = load_chunk(c + 1)                         # prefetch
+        for k in range(chunk):
+            state, (first, fcount, fval) = coder_step(words[k], *state)
+            i = c * chunk + k
+            first_ref[i, :] = first
+            fcount_ref[i, :] = fcount
+            fval_ref[i, :] = fval
+        return (*nxt, *state)
 
-    def body(i, _):
-        low = low_ref[0, :]
-        rng = rng_ref[0, :]
-        pending = pend_ref[0, :]
-        pcount = pcnt_ref[0, :]
-
-        w = op_ref[i, :]
-        s = w & 0xFF
-        b = (w >> 8) & 1
-        m = (w >> 9) & 3
-        is_op = m == MODE_OP
-        is_flush1 = m == MODE_FLUSH1
-        is_flush = is_flush1 | (m == MODE_FLUSH2)
-
-        r1 = (rng * s) >> 8
-        low_op = jnp.where(b != 0, low + rng - r1, low)
-        rng_op = jnp.where(b != 0, r1, rng - r1)
-        low1 = jnp.where(is_op, low_op,
-                         jnp.where(is_flush1, low + 0xFF, low))
-        rng1 = jnp.where(is_op, rng_op, jnp.where(is_flush, 0xFF, rng))
-
-        renorm = (rng1 < 0x100) & (is_op | is_flush)
-        case_b = pending < 0
-        case_c = low1 <= 0xFF00
-        case_d = low1 >= 0x10000
-
-        emit = renorm & (~case_b) & (case_c | case_d)
-        first_ref[i, :] = jnp.where(
-            emit, jnp.where(case_c, pending, pending + 1) & 0xFF, -1)
-        fcount_ref[i, :] = jnp.where(emit, pcount, 0)
-        fval_ref[i, :] = jnp.where(case_c, 0xFF, 0x00)
-
-        pend_ref[0, :] = jnp.where(
-            renorm,
-            jnp.where(case_b | case_c, low1 >> 8,
-                      jnp.where(case_d, (low1 >> 8) & 0xFF, pending)),
-            pending)
-        pcnt_ref[0, :] = jnp.where(
-            renorm,
-            jnp.where(case_b | case_c | case_d,
-                      jnp.where(case_b, pcount, 0), pcount + 1),
-            pcount)
-        low_ref[0, :] = jnp.where(renorm, (low1 & 0xFF) << 8, low1)
-        rng_ref[0, :] = jnp.where(renorm, rng1 << 8, rng1)
-        return 0
-
-    jax.lax.fori_loop(0, op_ref.shape[0], body, 0)
+    init = (*load_chunk(0),
+            jnp.zeros((lanes,), jnp.int32),
+            jnp.full((lanes,), 0xFF00, jnp.int32),
+            jnp.full((lanes,), -1, jnp.int32),
+            jnp.zeros((lanes,), jnp.int32))
+    jax.lax.fori_loop(0, nchunks, body, init)
 
 
 @functools.partial(jax.jit, static_argnames=("interpret",))
-def rac_pallas_packed(opw, interpret=False):
-    """opw int32 [steps, lanes] packed op words (steps % CHUNK == 0,
-    lanes % 128 == 0) -> staged (first, fcount, fval) int32
-    [steps, lanes]."""
-    steps, lanes = opw.shape
-    grid = (steps // CHUNK,)
-    spec = pl.BlockSpec((CHUNK, lanes), lambda i: (i, 0),
-                        memory_space=pltpu.VMEM)
+def rac_pallas_packed(opw, interpret: bool = False):
+    """opw int32 [steps, lanes] packed op words (lanes % LANE_BLOCK == 0)
+    -> staged (first, fcount, fval) int32 [steps, lanes], identical to
+    rac_scan_lanes on the unpacked words."""
+    check_kernel_platform("rac_pallas_packed", interpret)
+    n, lanes = opw.shape
+    if lanes % LANE_BLOCK:
+        raise ValueError(f"lanes={lanes} is not a multiple of {LANE_BLOCK}")
+    steps = -(-n // STEP_CHUNK) * STEP_CHUNK      # NOP-padded tail
+    opw = jnp.pad(opw, ((0, steps - n), (0, 0)))
+    spec = pl.BlockSpec((steps, LANE_BLOCK), lambda j: (0, j))
     out = pl.pallas_call(
-        _coder_kernel_packed,
-        grid=grid,
+        functools.partial(_coder_kernel, steps=steps, chunk=STEP_CHUNK),
+        grid=(lanes // LANE_BLOCK,),
         in_specs=[spec],
         out_specs=(spec, spec, spec),
         out_shape=(jax.ShapeDtypeStruct((steps, lanes), jnp.int32),) * 3,
-        scratch_shapes=[pltpu.VMEM((1, lanes), jnp.int32)] * 4,
+        compiler_params=plgpu.CompilerParams(num_warps=1, num_stages=1),
+        backend="triton",
         interpret=interpret,
+        name="ffv1_rac_coder",
     )(opw)
-    return out
-
-
-def pad_for_pallas(sv, bit, mode):
-    """Pad [steps, lanes] op matrices to CHUNK/LANE multiples."""
-    steps, lanes = sv.shape
-    ps = -(-steps // CHUNK) * CHUNK
-    plns = -(-lanes // LANE) * LANE
-
-    def pad(a):
-        out = np.zeros((ps, plns), dtype=np.int32)
-        out[:steps, :lanes] = a
-        return out
-
-    return pad(sv), pad(bit), pad(mode)
+    return tuple(o[:n] for o in out)

@@ -1,17 +1,17 @@
-"""TPU compute path for FFV1 — phase A: parallel context modeling.
+"""Device compute path for FFV1 — phase A: parallel context modeling.
 
 The FFV1 encoder splits naturally into two phases:
 
 * **Phase A (this module)** — for every pixel compute the coding context id
   and the folded residual.  On the *encoder* side there is no sequential
   dependency at all (the predictor reads original samples), so the whole
-  plane is computed with pure shifts, table gathers and a median — ideal
-  VPU work, one pass over HBM.  Runs under jit, shards over slices/frames
-  with jax.sharding.
+  plane is computed with pure shifts, table gathers and a median — pure
+  elementwise work, one pass over device memory.  Runs under jit,
+  shards over slices/frames with jax.sharding.
 * **Phase B** — the adaptive coder consumes the (context, diff) stream.
   That part is serial per slice; it runs in the C++ host runtime
-  (native/ffv1_runtime.cpp: encode_line over precomputed symbols) or in the
-  Pallas coder kernel (tpu_coder.py).
+  (native/ffv1_runtime.cpp: encode_line over precomputed symbols) or on
+  the device (device_coder.py).
 
 Bit-exactness notes: samples are wrapped to int16 like the reference's
 sample buffers (ffv1.c:145 int16 allocation); quant-table indexing uses the
@@ -79,7 +79,7 @@ def quant_lut(qt_row: np.ndarray):
 
     The FFV1 quantizers are monotone step functions of the *signed* 8-bit
     difference (d8 = sign-extended low byte), so a table lookup becomes a
-    handful of VPU compares — TPU gathers are slow, compares are free:
+    handful of elementwise compares that fuse with the rest of phase A:
         qt(d8) = base + sum_t delta_t * (d8 >= t)
     """
     row = np.asarray(qt_row, dtype=np.int64)

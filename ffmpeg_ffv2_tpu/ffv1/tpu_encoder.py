@@ -1,4 +1,4 @@
-"""Hybrid TPU FFV1 encoder: phase A (context modeling) on the TPU, phase B
+"""Hybrid FFV1 encoder: phase A (context modeling) on the device, phase B
 (adaptive entropy coding) in the slice-threaded C++ host runtime.
 
 Slices are independent coding units — the sample ring resets at slice
@@ -29,8 +29,8 @@ def _phase_a_batch(crops, qt, bits, five):
     """crops: int32 [n, h, w] (already wrapped) -> (ctx, diff) each [n,h,w].
 
     Outputs are narrowed to int16 on device (ctx < 32768 by the format's
-    context-count cap; |diff| < 2^15 for bits <= 16) — the device->host
-    link is the bottleneck of the hybrid pipeline, so halve the bytes."""
+    context-count cap; |diff| < 2^15 for bits <= 16) — the hybrid
+    pipeline copies them to the host, so halve the bytes."""
     fn = functools.partial(plane_context_diff, qt=qt, bits=bits, five=five)
     ctx, diff = jax.vmap(lambda s: fn(s))(crops)
     return ctx.astype(jnp.int16), diff.astype(jnp.int16)
@@ -61,7 +61,7 @@ def _phase_a_rgb_batch(crops, qt, bits, rb, five, alpha):
 
 
 class TPUFFV1Encoder:
-    """Encoder session; TPU for modeling, native host runtime for coding."""
+    """Encoder session; device for modeling, native host runtime for coding."""
 
     def __init__(self, width: int, height: int, pix_fmt: str,
                  config: FFV1Config | None = None, n_threads: int = 0):
@@ -69,11 +69,11 @@ class TPUFFV1Encoder:
         self.p = params_from_config(self.cfg, pix_fmt, width, height)
         if self.p.colorspace == 1 and self.p.version > 3:
             raise NotImplementedError(
-                "TPU phase-A RGB covers fixed RCT (version <= 3); the v4 "
+                "device phase-A RGB covers fixed RCT (version <= 3); the v4 "
                 "per-slice coefficient search uses the host path")
         if self.p.colorspace == 1 and self.p.use32bit:
             raise NotImplementedError(
-                "TPU phase-A RGB covers the int16 sample ring (<= 14 bpc)")
+                "device phase-A RGB covers the int16 sample ring (<= 14 bpc)")
         self.native = NativeFFV1Codec(self.p, n_threads)
         self.extradata = (H.write_extradata(self.p)
                           if self.p.version > 1 else b"")
@@ -111,7 +111,7 @@ class TPUFFV1Encoder:
         return plan
 
     def phase_a(self, planes):
-        """Run TPU phase A.
+        """Run device phase A.
 
         Returns (ctx, diff) crop arrays indexed [slice * n_planes + plane].
         Crops are per slice because chroma slices of odd-sized frames

@@ -13,7 +13,7 @@ reference's qp-ary adaptive CDF (ffv2enc.c:181 / ffv2dec.c:128, alphabet
 size == qp), with the PVQ search capped at |pulse| <= qp-1 — the alphabet
 cannot represent |pulse| == qp, and the reference encoder's uncapped float
 search writing that symbol is an out-of-bounds CDF access.  Pixel
-reconstruction diverges deliberately: MXU-friendly matrix transforms (see
+reconstruction diverges deliberately: matmul-friendly transforms (see
 dsp.py) and exact integer gain math (see pvq.py) replace the reference's
 float inverse path, so cross-decoded pixels are close but not identical.
 """

@@ -2,15 +2,15 @@
 lapped biorthogonal pre/post filters, and the block transforms.
 
 Behavioral counterpart of the reference's FFV2DSP (libavcodec/ffv2.c),
-redesigned TPU-first:
+redesigned for an accelerator:
 
 * transforms are exact fixed-point **matrix** DCT-II / DST-IV (int32,
   deterministic rounding, B=11 fraction bits) instead of scalar lifting —
-  batched blocks run as one dot on the MXU/VPU and the inverse is the
-  transpose with the same rounding rule.  The reference's lifting kernels
-  (ffv2.c:od_bin_fdct*) exist for multiplierless scalar CPUs; a systolic
-  array wants matmuls.  Consequence: our FFV2 bitstreams use this transform
-  basis (the reference has no FFV2 golden vectors or interop surface; see
+  batched blocks run as one batched dot and the inverse is the transpose
+  with the same rounding rule. The reference's lifting kernels
+  (ffv2.c:od_bin_fdct*) exist for multiplierless scalar CPUs; an accelerator
+  wants matmuls. Consequence: our FFV2 bitstreams use this transform basis
+  (the reference has no FFV2 golden vectors or interop surface; see
   SURVEY.md section 7 step 7).
 * the lapped filters keep the reference's exact integer lifting semantics
   (ffv2.c:lap_filt_params_* / LAP_FILTER_PAIR) — they define the SB-border
@@ -39,7 +39,7 @@ _ROUND = 1 << (_FRAC_BITS - 1)
 
 def _wrap32(x):
     """Reduce to int32 wraparound semantics so the int64 numpy reference
-    and the int32 TPU matmuls agree bit-for-bit on any input, including
+    and the int32 device matmuls agree bit-for-bit on any input, including
     hostile streams that overflow (mod-2^32 arithmetic is a homomorphism,
     so wrapping after an int64 accumulation equals int32 accumulation)."""
     return ((np.asarray(x, dtype=np.int64) + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)

@@ -6,7 +6,7 @@ Bit-exact implementation of the Daala/Opus-lineage range coder used by FFV2
 buffer, and raw bits packed *backwards* from the end of the packet.  The
 final packet is [entropy-coded bytes ...][... raw bits, last byte first].
 
-This scalar Python version is the oracle; the batched/TPU variants check
+This scalar Python version is the oracle; the batched/device variants check
 against it.
 """
 

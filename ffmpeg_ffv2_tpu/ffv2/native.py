@@ -1,8 +1,8 @@
-"""Native (C++) FFV2 sessions: TPU batched transforms + host entropy.
+"""Native (C++) FFV2 sessions: device batched transforms + host entropy.
 
 Packets are byte-identical to the pure-Python codec (ffv2/codec.py); the
 Daala EC, PVQ and band loops run in native code, the transforms and lapped
-filters run batched (jax on TPU, numpy fallback).
+filters run batched on the device (jax).
 """
 
 from __future__ import annotations
@@ -129,12 +129,8 @@ def _dec_uint(lib, h, num):
 
 
 def _batched_tx(blocks, inverse):
-    try:
-        from .tpu import fwd_tx_batch, inv_tx_batch
-        return (inv_tx_batch if inverse else fwd_tx_batch)(blocks)
-    except ImportError:        # jax unavailable: scalar reference path
-        fn = dsp.inv_tx_2d if inverse else dsp.fwd_tx_2d
-        return np.stack([fn(b) for b in blocks])
+    from .tpu import fwd_tx_batch, inv_tx_batch
+    return (inv_tx_batch if inverse else fwd_tx_batch)(blocks)
 
 
 class NativeFFV2Encoder:
@@ -173,41 +169,10 @@ class NativeFFV2Encoder:
             if bs != SB:
                 self._encode_split_tree(lib, h, padded, depth, bs)
                 return self._done(h)
-            ph, pw = padded.shape[1:]
-            nby, nbx = ph // SB, pw // SB
-            try:
-                # one jitted program through quantization: Q12, lapped
-                # prefilter, MXU transform, zigzag, PVQ pulses and exact
-                # gain split-sums — only ~1 byte/coeff leaves the device
-                fr = self._front_stage(padded, front_q)
-                self._code_stage_into(h, fr)
-                return self._done(h)
-            except ImportError:
-                pass
-            try:
-                # device front without quantization (older fallback)
-                from .tpu import encode_front
-                streams = encode_front(padded, depth).astype(np.int64)
-            except ImportError:     # jax unavailable
-                coeff = [dsp.lap_filter_frame_ver(
-                            dsp.lap_filter_frame_hor(
-                                dsp.ref_to_coeff(padded[i], depth),
-                                SB, 32, True),
-                            SB, 32, True)
-                         for i in range(self.planes)]
-                stacked = np.stack(coeff).reshape(self.planes, nby, SB,
-                                                  nbx, SB)
-                blocks = np.ascontiguousarray(
-                    stacked.transpose(1, 3, 0, 2, 4)
-                ).reshape(-1, SB, SB).astype(np.int32)
-                txed = _batched_tx(blocks, inverse=False)
-                order = dsp.scan_order(SB)
-                streams = txed.reshape(len(txed), -1)[:, order]
-                streams = streams.astype(np.int64)
-            streams = np.ascontiguousarray(streams)
-            lib.ffv2rt_enc_frame(
-                h, streams.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-                nby * nbx, self.planes, SB, dsp.TX_DCT)
+            # one jitted program through quantization: Q12, lapped
+            # prefilter, transform, zigzag, PVQ pulses and exact gain
+            # split-sums — only ~1 byte/coeff leaves the device
+            self._code_stage_into(h, self._front_stage(padded, front_q))
             return self._done(h)
         finally:
             lib.ffv2rt_enc_destroy(h)
@@ -250,17 +215,8 @@ class NativeFFV2Encoder:
         TL, TR, BL, BR).  Transforms batch per leaf size on device."""
         from .codec import split_tree, uniform_tree
         ph, pw = padded.shape[1:]
-        try:
-            from .tpu import prefilter_frame
-            coeff = prefilter_frame(padded, depth)
-        except ImportError:         # jax unavailable
-            coeff = np.stack([
-                dsp.lap_filter_frame_ver(
-                    dsp.lap_filter_frame_hor(
-                        dsp.ref_to_coeff(padded[i], depth), SB, 32, True),
-                    SB, 32, True)
-                for i in range(self.planes)])
-        coeff = np.asarray(coeff, dtype=np.int64)
+        from .tpu import prefilter_frame
+        coeff = np.asarray(prefilter_frame(padded, depth), dtype=np.int64)
 
         # per-SB trees + leaf list in walk order
         trees = {}
@@ -342,7 +298,7 @@ class NativeFFV2Encoder:
 
 
 class PipelinedFFV2Encoder:
-    """Frame-pipelined FFV2 encoder (VERDICT r2 item 7).
+    """Frame-pipelined FFV2 encoder.
 
     The Daala entropy coder is ONE serial chain per frame by format
     design (reference: libavcodec/daala_entropy.c — a single adaptive
@@ -390,12 +346,6 @@ class PipelinedFFV2Encoder:
         import collections
         enc = self.enc
         if enc.cfg.block_size != SB:
-            return [enc.encode(f) for f in frames]
-        try:
-            from .tpu import encode_front_q as _probe  # noqa: F401
-        except ImportError:
-            # jax-less host: no device front to overlap — sequential
-            # encode (mirrors NativeFFV2Encoder.encode's fallback)
             return [enc.encode(f) for f in frames]
         pend = collections.deque()
         out = []
@@ -525,34 +475,12 @@ class NativeFFV2Decoder:
             else:
                 return self._reconstruct_leaves(leaves, nplanes, depth,
                                                 ph, pw)
-            try:
-                from .tpu import decode_back
-                pix = decode_back(streams.astype(np.int32), depth,
-                                  nplanes, nby, nbx)
-                return [np.clip(pix[p, :self.height, :self.width]
-                                .astype(np.int64), 0, mx)
-                        for p in range(nplanes)]
-            except ImportError:     # jax unavailable
-                pass
-            order = dsp.scan_order(SB)
-            blocks = np.zeros((len(streams), SB * SB), dtype=np.int64)
-            blocks[:, order] = streams
-            blocks = blocks.reshape(-1, SB, SB).astype(np.int32)
-            inv = _batched_tx(blocks, inverse=True)
-
-            # [nby*nbx*P, SB, SB] -> per-plane [ph, pw]
-            planes5 = np.asarray(inv).reshape(nby, nbx, nplanes, SB, SB)
-            merged = planes5.transpose(2, 0, 3, 1, 4).reshape(
-                nplanes, ph, pw).astype(np.int64)
-            coeff = [merged[p] for p in range(nplanes)]
-            out = []
-            for p in range(nplanes):
-                c = dsp.lap_filter_frame_hor(
-                    dsp.lap_filter_frame_ver(coeff[p], SB, 32, False),
-                    SB, 32, False)
-                pix = dsp.coeff_to_ref(c.astype(np.int32), depth)
-                out.append(np.clip(pix[:self.height, :self.width], 0, mx))
-            return out
+            from .tpu import decode_back
+            pix = decode_back(streams.astype(np.int32), depth, nplanes,
+                              nby, nbx)
+            return [np.clip(pix[p, :self.height, :self.width]
+                            .astype(np.int64), 0, mx)
+                    for p in range(nplanes)]
         finally:
             lib.ffv2rt_dec_destroy(h)
 

@@ -70,7 +70,7 @@ def pvq_search(x: np.ndarray, k: int, max_abs: int | None = None
     """Greedy PVQ: y in Z^n with sum|y| == k maximizing (x.y)^2 / (y.y).
 
     The per-pulse argmax uses EXACT 32-bit integer comparison so numpy,
-    the C++ runtime and the TPU kernel (which has no int64/f64) pick
+    the C++ runtime and the device path (int32 only) pick
     identical positions: magnitudes prescale to <= 8 bits, then score
     a/b (a = (xy+ax)^2 <= 2^28, b = yy+2y+1 <= (k+1)^2) compares as the
     lexicographic pair (a//b, (a%b)*b_other) — the cross terms stay

@@ -9,8 +9,8 @@
 // this framework: a single templated line codec, explicit SliceTask
 // objects, byte buffers instead of pointer arithmetic.
 //
-// The scalar Python oracle (ffv1/codec_py.py) validates this file; the TPU
-// kernels (ffv1/tpu.py) are validated against both.
+// The scalar Python oracle (ffv1/codec_py.py) validates this file; the
+// device kernels (ffv1/tpu.py) are validated against both.
 
 #include <cstdint>
 #include <cstring>
@@ -291,7 +291,7 @@ static int get_symbol(RangeDec& c, uint8_t* st, bool is_signed) {
 // ---------------------------------------------------------------------------
 // Op planner for the on-device arithmetic coder: expands a slice's entire
 // range-coded stream (headers + per-pixel symbols) into (state_value, bit)
-// pairs with the context adaptation already applied.  The TPU lane kernel
+// pairs with the context adaptation already applied.  The device lane coder
 // (ffv1/tpu_coder.py) then runs the pure low/range arithmetic for all
 // slices in parallel; outputs are byte-exact with RangeEnc.
 // ---------------------------------------------------------------------------
@@ -940,7 +940,7 @@ static bool decode_plane_t(const Params& p, SliceState& ss, RangeDec& c,
     return true;
 }
 
-// Phase-B-only plane encode: (context, diff) precomputed by the TPU
+// Phase-B-only plane encode: (context, diff) precomputed by the device
 // phase-A pass (ffv1/tpu.py); full-frame int32 streams, same geometry as
 // the plane.  Coder semantics identical to encode_line.
 struct SymView {

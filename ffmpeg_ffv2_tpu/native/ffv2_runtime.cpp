@@ -2,7 +2,7 @@
 //
 // The Daala entropy coder and the per-band PVQ quantization loops are the
 // serial part of FFV2; this runtime executes them natively while the block
-// transforms run batched on the TPU (ffv2/tpu.py).  Bit-exact with the
+// transforms run batched on the device (ffv2/tpu.py).  Bit-exact with the
 // Python implementation (ffv2/entropy.py, ffv2/codec.py), which is itself
 // validated symbol-exact against the reference C coder.
 //
@@ -378,7 +378,7 @@ static int64_t icbrt64(uint64_t v) {
 // qp-ary pulse alphabet cannot represent |pulse| == qp).
 // exact 32-bit scoring (ffv2/pvq.py pvq_search): magnitudes prescale
 // to <= 8 bits, score a/b compares as (a/b, (a%b)*b_other) — identical
-// selections in numpy, here, and the int32-only TPU kernel
+// selections in numpy, here, and the int32-only device path
 static void pvq_search(const int64_t* x, int n, int k, int max_abs,
                        int64_t* y) {
     std::vector<int32_t> ax(n);

@@ -41,10 +41,9 @@ from jax.sharding import PartitionSpec as P
 
 from ..core.crc import crc32_trailer
 from ..ffv1.params import FFV1Config, CODER_GOLOMB
-from ..ffv1.device_coder import (DeviceFFV1Encoder, GCAP, render_bytes,
-                                 quantize_cap)
+from ..ffv1.device_coder import (DeviceFFV1Encoder, GCAP, OP_GRAN,
+                                 render_bytes, quantize_cap)
 from ..ffv1.tpu import plane_context_diff, _wrap16
-from ..ffv1.expand_pallas import OP_GRAN
 from .slices import gather_slice_bytes, uniform_slice_stack
 
 
@@ -208,7 +207,7 @@ class _BankUnit:
                                                 vlc_adapt_reference,
                                                 writeback_vlc)
                 s0 = build_vlc_s0(plan, vcanon, caps["tiles"])
-                if jax.default_backend() == "tpu" and enc.use_pallas:
+                if enc.plan.impl("vlc") == "kernel":
                     from ..ffv1.device_rice import vlc_adapt_pallas
                     code_cells, ends = vlc_adapt_pallas(
                         ch1c, plan["tile_caps"], plan["tile_bases"],
@@ -367,8 +366,6 @@ class ParallelFFV1Encoder:
     mesh : ``jax.sharding.Mesh`` with axes ("data", "slice");
         every slice bank's count must be divisible by the slice-axis
         size (uniform frames have one bank of cfg.slices).
-    use_pallas : force the pallas kernels on/off (default: on iff the
-        backend is TPU).
 
     ``encode_batch(frames)`` consumes one frame per data lane per call;
     lane b's frames form an independent stream (GOP-parallel).  All
@@ -376,8 +373,7 @@ class ParallelFFV1Encoder:
     GOP-parallel host decoder (ffv1/batched.py).
     """
 
-    def __init__(self, width, height, pix_fmt, cfg: FFV1Config, mesh,
-                 use_pallas=None):
+    def __init__(self, width, height, pix_fmt, cfg: FFV1Config, mesh):
         if "data" not in mesh.shape or "slice" not in mesh.shape:
             raise ValueError('mesh must have axes ("data", "slice")')
         self.mesh = mesh
@@ -387,10 +383,7 @@ class ParallelFFV1Encoder:
             raise ValueError(
                 f"slices={cfg.slices} not divisible by slice-axis size "
                 f"{self.n_shards}")
-        if use_pallas is None:
-            use_pallas = jax.default_backend() == "tpu"
-        self.enc = DeviceFFV1Encoder(width, height, pix_fmt, cfg,
-                                     use_pallas=use_pallas)
+        self.enc = DeviceFFV1Encoder(width, height, pix_fmt, cfg)
         self.p = self.enc.p
         self.cfg = cfg
         self.golomb = self.enc.golomb

@@ -1,4 +1,4 @@
-"""Multi-chip sharding for the FFV2 TPU front-end.
+"""Multi-device sharding for the FFV2 device front-end.
 
 FFV2's parallel unit is the superblock: transforms, zigzag, and PVQ
 quantization are per-SB-block, but the lapped pre-filter crosses SB

@@ -1,4 +1,4 @@
-"""Multi-chip sharding for the FFV1 TPU pipeline.
+"""Multi-device sharding for the FFV1 device pipeline.
 
 The codec's natural parallel axes map onto the mesh as:
 

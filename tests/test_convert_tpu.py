@@ -57,7 +57,7 @@ def test_gbrp16_to_yuv420p():
 
 def test_fused_bgr0_phase_a_matches_staged():
     """The fused convert+model program == staged host conversion + the
-    TPU phase A on each plane."""
+    device phase A on each plane."""
     import jax.numpy as jnp
     from ffmpeg_ffv2_tpu.ffv1.params import FFV1Config, params_from_config
     from ffmpeg_ffv2_tpu.ffv1.tpu import (lut_for, plane_context_diff,

@@ -173,7 +173,7 @@ def test_device_encoder_byte_exact(pix, wh, coder):
     w, h = wh
     cfg = FFV1Config(level=3, coder=coder, slices=4)
     p = params_from_config(cfg, pix, w, h)
-    dev = DeviceFFV1Encoder(w, h, pix, cfg, use_pallas=False)
+    dev = DeviceFFV1Encoder(w, h, pix, cfg)
     nat = NativeFFV1Codec(p)
     mx = (1 << p.bits) - 1
     shapes = [(h, w)]
@@ -191,33 +191,6 @@ def test_device_encoder_byte_exact(pix, wh, coder):
             f"({len(pkt_dev)} vs {len(pkt_nat)} bytes)"
 
 
-@pytest.mark.parametrize("pix,wh", [
-    ("yuv420p", (64, 48)),
-    ("yuv444p16", (24, 16)),            # wide path: repeat sub-steps
-])
-def test_adapt_pallas_interpret_matches_reference(pix, wh):
-    """Pallas kernel (interpret mode on CPU) == XLA reference walk."""
-    from ffmpeg_ffv2_tpu.ffv1.device_coder import DeviceFFV1Encoder
-    rng = np.random.RandomState(5)
-    w, h = wh
-    cfg = FFV1Config(level=3, coder=1, slices=4)
-    dev = DeviceFFV1Encoder(w, h, pix, cfg, use_pallas=True)
-    nat_dev = DeviceFFV1Encoder(w, h, pix, cfg, use_pallas=False)
-    p = dev.p
-    mx = (1 << p.bits) - 1
-    shapes = [(h, w)]
-    if p.chroma_planes:
-        shapes += [(h >> p.chroma_v_shift, w >> p.chroma_h_shift)] * 2
-    for t in range(3):
-        planes = [rng.randint(0, mx + 1, s).astype(np.int32)
-                  for s in shapes]
-        if t == 1:
-            planes = [np.full(s, 42, np.int32) for s in shapes]
-        a = dev.encode(planes, force_keyframe=(t == 0))
-        b = nat_dev.encode(planes, force_keyframe=(t == 0))
-        assert a == b, f"frame {t}"
-
-
 def test_device_encoder_batch_intra():
     """encode_batch: B intra frames in one fused program == per-frame
     native packets (frame-parallel analogue, all-intra)."""
@@ -227,7 +200,7 @@ def test_device_encoder_batch_intra():
     w, h = 64, 48
     cfg = FFV1Config(level=3, coder=1, slices=4)
     p = params_from_config(cfg, "yuv420p", w, h)
-    dev = DeviceFFV1Encoder(w, h, "yuv420p", cfg, use_pallas=False)
+    dev = DeviceFFV1Encoder(w, h, "yuv420p", cfg)
     nat = NativeFFV1Codec(p)
     shapes = [(h, w), (h // 2, w // 2), (h // 2, w // 2)]
     frames = [[rng.randint(0, 256, s).astype(np.int32) for s in shapes]
@@ -251,7 +224,7 @@ def test_device_encoder_mega_groups_small_gcap(monkeypatch):
     w, h = 64, 48
     cfg = FFV1Config(level=3, coder=1, slices=4)
     p = params_from_config(cfg, "yuv420p", w, h)
-    dev = dcmod.DeviceFFV1Encoder(w, h, "yuv420p", cfg, use_pallas=False)
+    dev = dcmod.DeviceFFV1Encoder(w, h, "yuv420p", cfg)
     nat = NativeFFV1Codec(p)
     shapes = [(h, w), (h // 2, w // 2), (h // 2, w // 2)]
     for t in range(4):
@@ -354,102 +327,6 @@ def test_shift_compact_expand_randomized():
         assert np.array_equal(em, expect != 0)
 
 
-@pytest.mark.parametrize("code_bits,half", [(8, 128), (16, 32768)])
-def test_expand_pallas_interpret_matches_reference(code_bits, half):
-    """Streaming expand kernel (interpret mode) == XLA emission grids."""
-    import jax.numpy as jnp
-    from ffmpeg_ffv2_tpu.ffv1.expand_pallas import (
-        build_expand_window, expand_pallas, expand_ops_reference,
-        WBLK, OP_GRAN)
-    rng = np.random.RandomState(3)
-    S, npix = 3, 1500
-    W = dc.n_ev_words(code_bits)
-    # diff mix: zeros runs (count-1 records), small, extreme values
-    diff = rng.randint(-half, half, (S, npix))
-    diff[:, :300] = 0
-    diff[1, 400:800] = rng.randint(-3, 4, 400)
-    diff = jnp.asarray(diff, jnp.int32)
-    words = [jnp.asarray(rng.randint(-2**31, 2**31 - 1, (S, npix),
-                                     dtype=np.int64).astype(np.int32))
-             for _ in range(W)]
-    hpad = 40
-    svp = jnp.asarray(rng.randint(0, 256, (S, hpad)), jnp.int32)
-    btp = jnp.asarray(rng.randint(0, 2, (S, hpad)), jnp.int32)
-    hlen = jnp.asarray([40, 17, 33], jnp.int32)
-
-    k_max = dc.k_max_for_bits(code_bits)
-    op_cap = -(-(npix * k_max + hpad + 8) // OP_GRAN) * OP_GRAN
-    ref, n_ops = expand_ops_reference(words, diff, svp, btp, hlen,
-                                      op_cap, code_bits)
-    win, totals, n_ops2, nblk, C = build_expand_window(
-        words, diff, svp, btp, hlen, op_cap)
-    assert C == W + 2 and win.shape[0] == C
-    got = expand_pallas(win, totals, op_cap // 128, nblk, C, W,
-                        code_bits, interpret=True)
-    got = np.asarray(got).reshape(S, op_cap)
-    ref = np.asarray(ref)
-    assert np.array_equal(np.asarray(n_ops), np.asarray(n_ops2))
-    for s in range(S):
-        ne = np.nonzero(got[s] != ref[s])[0]
-        assert ne.size == 0, \
-            f"slice {s}: {ne.size} mismatches, first at {ne[:5]}"
-
-
-def test_place_sorted_pallas_interpret():
-    """Sorted-placement kernel (interpret) == XLA scatter with drops."""
-    import jax
-    import jax.numpy as jnp
-    from ffmpeg_ffv2_tpu.ops.place_pallas import place_sorted_pallas
-    rng = np.random.RandomState(11)
-    drop = np.iinfo(np.int32).max
-    for trial, (nrows, n) in enumerate([(64, 1000), (96, 9000),
-                                        (160, 200)]):
-        cells = nrows * 128
-        dest = rng.permutation(cells)[:n].astype(np.int32)
-        dest[rng.rand(n) < 0.05] = drop
-        ch1 = rng.randint(1, 1 << 14, n).astype(np.int32)
-        ch2 = rng.randint(0, 1 << 22, n).astype(np.int32)
-        sd, s1, s2 = jax.lax.sort(
-            (jnp.asarray(dest), jnp.asarray(ch1), jnp.asarray(ch2)),
-            num_keys=1)
-        o1, o2 = place_sorted_pallas(sd, (s1, s2), nrows, (0, drop),
-                                     interpret=True)
-        e1 = np.zeros(cells, np.int32)
-        e2 = np.full(cells, drop, np.int32)
-        ok = dest != drop
-        e1[dest[ok]] = ch1[ok]
-        e2[dest[ok]] = ch2[ok]
-        assert np.array_equal(np.asarray(o1).ravel(), e1), f"t{trial} ch1"
-        assert np.array_equal(np.asarray(o2).ravel(), e2), f"t{trial} ch2"
-
-
-def test_render_pallas_interpret_matches_fast():
-    """Streaming render kernels (interpret) == render_bytes_fast."""
-    import jax.numpy as jnp
-    from ffmpeg_ffv2_tpu.ffv1.render_pallas import render_bytes_pallas
-    rng = np.random.RandomState(17)
-    S, steps, buf_cap = 3, 8192, 8192
-    for trial, p_emit in enumerate([0.3, 0.9, 0.05]):
-        emit = rng.rand(S, steps) < p_emit
-        emit[:, steps - 1] = True
-        first = np.where(emit, rng.randint(0, 256, (S, steps)), -1)
-        fcount = np.where(emit, rng.randint(0, 5, (S, steps)), 0)
-        fcount[0, np.nonzero(emit[0])[0][0]] = 900      # long fill run
-        fval = np.where(rng.rand(S, steps) < 0.5, 0xFF, 0)
-        args = [jnp.asarray(a, jnp.int32) for a in (first, fcount, fval)]
-        bp, tp, fp = render_bytes_pallas(*args, buf_cap, interpret=True)
-        bf, tf, ff = dc.render_bytes_fast(*args, buf_cap)
-        assert np.array_equal(np.asarray(tp), np.asarray(tf)), f"t{trial}"
-        assert int(fp) == int(ff)
-        a, b = np.asarray(bp), np.asarray(bf)
-        for s in range(S):
-            n = int(np.asarray(tf)[s])
-            if n > buf_cap:
-                continue
-            ne = np.nonzero(a[s][:n] != b[s][:n])[0]
-            assert ne.size == 0, f"t{trial} s{s}: first diff {ne[:5]}"
-
-
 @pytest.mark.parametrize("level,coder,slices", [
     (0, 0, 1),          # v0 golomb (the FATE -level 0 config)
     (0, 2, 1),          # v0 range with the custom (ver2) table
@@ -468,7 +345,7 @@ def test_device_encoder_versions_byte_exact(level, coder, slices):
     cfg = FFV1Config(level=level, coder=coder, slices=slices,
                      slicecrc=1 if level >= 3 else 0)
     p = params_from_config(cfg, "yuv420p", w, h)
-    dev = DeviceFFV1Encoder(w, h, "yuv420p", cfg, use_pallas=False)
+    dev = DeviceFFV1Encoder(w, h, "yuv420p", cfg)
     nat = NativeFFV1Codec(p)
     shapes = [(h, w), (h // 2, w // 2), (h // 2, w // 2)]
     for t in range(3):
@@ -498,7 +375,7 @@ def test_device_encoder_nonuniform_geometry(pix, wh, coder, banked):
     w, h = wh
     cfg = FFV1Config(level=3, coder=coder, slices=4, slicecrc=1)
     p = params_from_config(cfg, pix, w, h)
-    dev = DeviceFFV1Encoder(w, h, pix, cfg, use_pallas=False)
+    dev = DeviceFFV1Encoder(w, h, pix, cfg)
     assert (dev._banks is not None and len(dev._banks) > 1) == banked
     nat = NativeFFV1Codec(p)
     if pix == "bgr0":
@@ -532,7 +409,7 @@ def test_device_encoder_v4_rgb_rct_search():
     w, h = 64, 48
     cfg = FFV1Config(level=4, coder=1, slices=4, slicecrc=1)
     p = params_from_config(cfg, "bgr0", w, h)
-    dev = DeviceFFV1Encoder(w, h, "bgr0", cfg, use_pallas=False)
+    dev = DeviceFFV1Encoder(w, h, "bgr0", cfg)
     assert dev._v4rgb
     nat = NativeFFV1Codec(p)
     yy, xx = np.mgrid[0:h, 0:w]
@@ -566,7 +443,7 @@ def test_device_encoder_rgb48(level):
     cfg = FFV1Config(level=level, coder=1, slices=4, slicecrc=1)
     p = params_from_config(cfg, "rgb48", w, h)
     assert p.use32bit
-    dev = DeviceFFV1Encoder(w, h, "rgb48", cfg, use_pallas=False)
+    dev = DeviceFFV1Encoder(w, h, "rgb48", cfg)
     assert dev.code_bits == 17
     nat = NativeFFV1Codec(p)
     dec = NativeFFV1Codec(p)

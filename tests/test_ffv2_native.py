@@ -90,7 +90,7 @@ def test_native_decoder_bad_pixfmt():
 
 
 def test_pipelined_matches_sequential():
-    """Frame-pipelined EC (VERDICT r2 item 7): byte-identical packets.
+    """Frame-pipelined EC: byte-identical packets.
     The EC is a pure function of the staged (dc, cg, pulses), so
     overlapping frame t's C++ coder with frame t+1's front must not
     change a single byte."""

@@ -41,8 +41,7 @@ def test_parallel_matches_host_and_carries_state(coder):
     mesh = _mesh(2, 4)
     cfg = FFV1Config(level=3, coder=coder, slices=16, slicecrc=1,
                      gop_size=2)
-    par = ParallelFFV1Encoder(w, h, "yuv420p", cfg, mesh,
-                              use_pallas=False)
+    par = ParallelFFV1Encoder(w, h, "yuv420p", cfg, mesh)
     # two independent per-lane streams, 2 frames each (key + inter)
     lanes = [_frames(w, h, 2, seed) for seed in (7, 11)]
     refs = []
@@ -68,7 +67,7 @@ def test_parallel_rgb_range():
     w, h = 64, 32
     mesh = _mesh(1, 8)
     cfg = FFV1Config(level=3, coder=1, slices=16, slicecrc=1)
-    par = ParallelFFV1Encoder(w, h, "bgr0", cfg, mesh, use_pallas=False)
+    par = ParallelFFV1Encoder(w, h, "bgr0", cfg, mesh)
     fr = _frames(w, h, 1, 3, rgb=True)[0]
     ref = FFV1Encoder(w, h, "bgr0", cfg).encode(fr, True)
     pkt = par.encode_batch([fr], force_keyframe=True)[0]
@@ -79,19 +78,17 @@ def test_parallel_rejects_bad_mesh():
     mesh = _mesh(1, 8)
     cfg = FFV1Config(level=3, coder=1, slices=12)   # 12 % 8 != 0
     with pytest.raises(ValueError, match="divisible"):
-        ParallelFFV1Encoder(64, 32, "yuv420p", cfg, mesh,
-                            use_pallas=False)
+        ParallelFFV1Encoder(64, 32, "yuv420p", cfg, mesh)
 
 
 def test_parallel_banked_nonuniform():
     """Non-uniform slice geometry (36x33 at 2x2: luma slice rows 16 vs
     17) shards via shape banks: one shard_map program per bank, packets
-    byte-identical to the host encoder (VERDICT r4 item 7)."""
+    byte-identical to the host encoder."""
     w, h = 36, 33
     mesh = _mesh(1, 2)
     cfg = FFV1Config(level=3, coder=1, slices=4, slicecrc=1)
-    par = ParallelFFV1Encoder(w, h, "yuv420p", cfg, mesh,
-                              use_pallas=False)
+    par = ParallelFFV1Encoder(w, h, "yuv420p", cfg, mesh)
     assert len(par.units) == 2
     rng = np.random.RandomState(2)
 
@@ -116,7 +113,7 @@ def test_parallel_rgb_rice():
     w, h = 64, 32
     mesh = _mesh(1, 8)
     cfg = FFV1Config(level=3, coder=0, slices=16, slicecrc=1)
-    par = ParallelFFV1Encoder(w, h, "bgr0", cfg, mesh, use_pallas=False)
+    par = ParallelFFV1Encoder(w, h, "bgr0", cfg, mesh)
     fr = _frames(w, h, 1, 5, rgb=True)[0]
     ref = FFV1Encoder(w, h, "bgr0", cfg).encode(fr, True)
     pkt = par.encode_batch([fr], force_keyframe=True)[0]

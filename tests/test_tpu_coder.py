@@ -92,29 +92,48 @@ def test_bit_packer_matches_bitwriter():
         assert pack_lane_bytes(words[:, l], int(total[l])) == bw.flush()
 
 
-def test_pallas_kernel_matches_scan():
-    """The Mosaic kernel must reproduce the scan formulation exactly."""
-    from ffmpeg_ffv2_tpu.ffv1.tpu_coder import (rac_scan_lanes, MODE_OP,
+def _op_words(rng, steps, lanes, mix):
+    """Packed op words [mode:2 | bit:1 | sv:8] for one of three mixes:
+    plain ops, ops with NOP gaps, and streams ending in both flush
+    modes at different lengths."""
+    from ffmpeg_ffv2_tpu.ffv1.tpu_coder import (MODE_NOP, MODE_OP,
                                                 MODE_FLUSH1, MODE_FLUSH2)
-    from ffmpeg_ffv2_tpu.ffv1.pallas_coder import (rac_pallas_lanes,
-                                                   pad_for_pallas)
+    sv = rng.randint(1, 256, (steps, lanes))
+    bit = rng.randint(0, 2, (steps, lanes))
+    mode = np.full((steps, lanes), MODE_OP)
+    if mix == "nops":
+        mode[rng.rand(steps, lanes) < 0.3] = MODE_NOP
+    if mix in ("nops", "flush"):
+        for lane in range(lanes):
+            end = steps - 2 - (lane * 7) % (steps // 2)
+            mode[end:, lane] = MODE_NOP
+            mode[end, lane] = MODE_FLUSH1
+            mode[end + 1, lane] = MODE_FLUSH2
+    return (sv | (bit << 8) | (mode << 9)).astype(np.int32)
+
+
+@pytest.mark.parametrize("lanes", [1, 5, 32, 40])
+@pytest.mark.parametrize("mix", ["ops", "nops", "flush"])
+def test_coder_kernel_interpret_matches_scan(lanes, mix):
+    """The Triton coder kernel (interpret mode) reproduces the plain
+    lax.scan coder exactly, over lane counts that fill one, part of one
+    and more than one lane block."""
     import jax.numpy as jnp
-    rng = np.random.RandomState(0)
-    steps, lanes = 700, 5
-    sv = rng.randint(1, 256, (steps, lanes)).astype(np.int32)
-    bit = rng.randint(0, 2, (steps, lanes)).astype(np.int32)
-    mode = np.full((steps, lanes), MODE_OP, np.int32)
-    for l in range(lanes):
-        L = 600 + l * 15
-        mode[L:, l] = 0
-        mode[L, l] = MODE_FLUSH1
-        mode[L + 1, l] = MODE_FLUSH2
+    from ffmpeg_ffv2_tpu.ffv1.tpu_coder import rac_scan_lanes
+    from ffmpeg_ffv2_tpu.ffv1.pallas_coder import (LANE_BLOCK,
+                                                   rac_pallas_packed)
+    rng = np.random.RandomState(lanes * 31 + len(mix))
+    steps = 90
+    opw = _op_words(rng, steps, lanes, mix)
     ref = [np.asarray(a) for a in rac_scan_lanes(
-        jnp.asarray(sv), jnp.asarray(bit), jnp.asarray(mode))]
-    got = [np.asarray(a) for a in rac_pallas_lanes(
-        *pad_for_pallas(sv, bit, mode), interpret=True)]
+        jnp.asarray(opw & 0xFF), jnp.asarray((opw >> 8) & 1),
+        jnp.asarray((opw >> 9) & 3))]
+    padded = -(-lanes // LANE_BLOCK) * LANE_BLOCK
+    got = [np.asarray(a) for a in rac_pallas_packed(
+        jnp.asarray(np.pad(opw, ((0, 0), (0, padded - lanes)))),
+        interpret=True)]
     for r, g in zip(ref, got):
-        assert np.array_equal(r, g[:steps, :lanes])
+        assert np.array_equal(r, g[:, :lanes])
 
 
 def test_device_coder_v4_pcm_fallback():

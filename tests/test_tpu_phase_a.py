@@ -1,4 +1,4 @@
-"""TPU phase-A (context modeling) must make the hybrid encoder produce
+"""Device phase A (context modeling) must make the hybrid encoder produce
 packets byte-identical to the pure host encoder — and thus to the
 reference."""
 
@@ -56,7 +56,7 @@ def test_tpu_encoder_matches_host(name, cfg, fmt, bits, hs, vs):
         key = t % tpu.cfg.gop_size == 0
         a = tpu.encode(planes)
         b = host.encode(planes, key)
-        assert a == b, f"frame {t}: TPU-hybrid != host"
+        assert a == b, f"frame {t}: device hybrid != host"
         outs = dec.decode(a)
         for x, y in zip(planes, outs):
             assert np.array_equal(x, y)

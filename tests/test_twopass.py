@@ -118,7 +118,7 @@ def test_twopass_pass2_device_byte_exact():
         params_from_config(cfg, "yuv420p", W, H_), txt)
     p2n = twopass.apply_pass2(
         params_from_config(cfg, "yuv420p", W, H_), txt)
-    dev = DeviceFFV1Encoder(W, H_, "yuv420p", cfg, use_pallas=False,
+    dev = DeviceFFV1Encoder(W, H_, "yuv420p", cfg,
                             params=p2)
     nat = NativeFFV1Codec(p2n)
     for t, f in enumerate(frames):
